@@ -10,7 +10,7 @@ from tpulc.gold.lzp import lzp_decode, lzp_encode
 
 
 def _pg(n):
-    with open("/root/reference/cuda-lzss-unknown/pg1661.txt", "rb") as f:
+    with open("tests/data/pg1661.txt", "rb") as f:
         data = f.read()
     return (data * (n // len(data) + 1))[:n]
 

@@ -12,7 +12,7 @@ from tpulc.codecs.bwt.bz2stream import bz2_compress, rle1_split_blocks
 
 
 def _pg(n):
-    with open("/root/reference/cuda-lzss-unknown/pg1661.txt", "rb") as f:
+    with open("tests/data/pg1661.txt", "rb") as f:
         return f.read()[:n]
 
 

@@ -12,7 +12,7 @@ from tpulc.cli.main import main
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     d = tmp_path_factory.mktemp("cli")
-    with open("/root/reference/cuda-lzss-unknown/pg1661.txt", "rb") as f:
+    with open("tests/data/pg1661.txt", "rb") as f:
         base = f.read()[:40000]
     data = base + base[:10000]
     p = d / "in.dat"

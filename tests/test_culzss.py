@@ -10,7 +10,7 @@ from tpulc.gold import culzss_gold
 
 
 def _pg(n):
-    with open("/root/reference/cuda-lzss-unknown/pg1661.txt", "rb") as f:
+    with open("tests/data/pg1661.txt", "rb") as f:
         return f.read()[:n]
 
 
@@ -26,7 +26,7 @@ CASES = {
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_tpu_encode_gold_decode(name):
-    """Every TPU-encoded packet must decode with the reference-semantics
+    """Every device-encoded packet must decode with the reference-semantics
     serial gold decoder (format validity)."""
     data = CASES[name]()[: PCKT * 2]
     data = data + bytes(PCKT * 2 - len(data))
@@ -41,7 +41,7 @@ def test_tpu_encode_gold_decode(name):
 
 
 def test_gold_encode_tpu_decode():
-    """TPU decoder handles arbitrary gold-encoded packets."""
+    """The device decoder handles arbitrary gold-encoded packets."""
     from tpulc.codecs.lzss.culzss import culzss_decode_block
 
     data = _pg(PCKT * 2)

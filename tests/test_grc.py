@@ -114,31 +114,21 @@ def test_inits_pack_roundtrip():
 
 
 @pytest.mark.parametrize("name,kw", CASES)
-def test_pallas_walks_match_xla(name, kw):
-    """The Pallas VMEM-resident model walks must be bit-identical to
-    the XLA reference: same words/states out of encode, same ranks out
-    of decode (interpret mode; the real-chip run is pinned by
-    tests/tpu_kernels_check.py)."""
-    from tpulc.codecs.bsclike import grc_pallas as GP
-
+def test_start_bucket_roundtrip(name, kw):
+    """Encode with the driver's compact start bucket (bs < cap) and
+    decode back exactly, for each stream shape."""
     cap, m = 4096, 3777
     ranks = _mk_ranks(cap, seed=hash(name) % 1000, **kw)
     ranks[m:] = 0
-    maxbits = int(np.asarray(
-        grc.grc_lane_bits(jnp.asarray(ranks), jnp.int32(m))[0]).max())
-    W = grc_bucket(maxbits)
-    ref = grc.grc_encode(jnp.asarray(ranks), jnp.int32(m), W)
-    got = GP.grc_encode_pallas(jnp.asarray(ranks), jnp.int32(m), W,
-                               interpret=True)
-    for a, b, what in zip(ref, got,
-                          ("words", "counts", "states", "inits",
-                           "cinits", "tot")):
-        assert np.array_equal(np.asarray(a), np.asarray(b)), (name, what)
-    words, counts, states, inits, cinits, _ = ref
-    dec = GP.grc_decode_pallas(
-        words, counts, states, jnp.int32(m),
-        jnp.asarray(np.asarray(inits)), jnp.asarray(np.asarray(cinits)),
-        jnp.int32(maxbits), cap, interpret=True)
+    lane_bits, nstarts = grc.grc_lane_bits(jnp.asarray(ranks), jnp.int32(m))
+    maxbits = int(np.asarray(lane_bits).max())
+    bs = min(1 << max(10, (int(nstarts) - 1).bit_length()), cap)
+    words, counts, states, inits, cinits, _ = grc.grc_encode(
+        jnp.asarray(ranks), jnp.int32(m), grc_bucket(maxbits), bs=bs)
+    dec = grc.grc_decode(words, counts, states, jnp.int32(m),
+                         jnp.asarray(np.asarray(inits)),
+                         jnp.asarray(np.asarray(cinits)),
+                         jnp.int32(maxbits), cap)
     assert np.array_equal(np.asarray(dec)[:m], ranks[:m]), name
 
 

@@ -5,8 +5,6 @@ a slow numpy bit-serial codec is the oracle, plus Kraft/optimality
 checks on the package-merge lengths.
 """
 
-import os
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +17,7 @@ from tpulc.codecs.huffman import (
     package_merge_lengths,
 )
 from tpulc.codecs.huffman import driver
+from tpulc.codecs.huffman.tables import DEFAULT_MAX_LEN
 
 
 def _ref_encode(data, codes, lengths):
@@ -194,44 +193,131 @@ def test_v2_wire_roundtrip_chunks():
     assert driver.decompress(comp1) == data
 
 
-@pytest.mark.skipif(
-    not os.environ.get("TPULC_TEST_TPU"),
-    reason="set TPULC_TEST_TPU=1 with a TPU attached (XLA:CPU compile "
-           "of the jit-of-interpret graph is pathologically slow)",
-)
-def test_buffered_kernel_matches_rank_decoder():
-    """The v2 buffered Pallas kernel is bit-identical to the XLA rank
-    decoder on a mixed batch with a partial tail block (on-chip; the
-    always-run CPU pinning of the same wire path is
-    test_v2_wire_roundtrip_chunks through the rank decoder, and
-    tests/tpu_kernels_check.py pins the production chunk=128 shape)."""
-    import subprocess
-    import sys
-
-    script = os.path.join(os.path.dirname(__file__),
-                          "huff_interpret_check.py")
-    r = subprocess.run([sys.executable, script, "tpu"],
-                       capture_output=True, text=True, timeout=900)
-    assert r.returncode == 0 and "EQUAL" in r.stdout, (
-        r.stdout[-500:], r.stderr[-500:])
+def _pack_chunks(syms, tables, sel, chunk):
+    """Numpy MSB-first encoder of `syms` in chunks of `chunk` symbols,
+    chunk c coded with table sel[c] -> (words u32, chunk bit offsets,
+    total bits)."""
+    bits, offs = [], []
+    for c in range(-(-len(syms) // chunk)):
+        offs.append(len(bits))
+        codes, lens = tables[sel[c]]
+        for s in syms[c * chunk:(c + 1) * chunk]:
+            code, ln = int(codes[s]), int(lens[s])
+            bits.extend((code >> (ln - 1 - k)) & 1 for k in range(ln))
+    total = len(bits)
+    bits += [0] * (-len(bits) % 32)
+    words = np.packbits(np.asarray(bits, np.uint8)).view(">u4")
+    return words.astype(np.uint32), np.asarray(offs, np.int32), total
 
 
-def test_buffered_kernel_interpret_tiny():
-    """Always-run interpret-mode pinning of the buffered kernel
-    (ADVICE r4: a default CPU run should exercise the production TPU
-    decode path at least once).  Runs in a subprocess because XLA:CPU
-    compile of the jit-of-interpret graph is nondeterministically
-    slow — a timeout skips rather than hangs the suite."""
-    import subprocess
-    import sys
+@pytest.mark.parametrize("chunk,K,max_len,n", [
+    (128, 1, 12, 128 * 9),          # one table, whole chunks
+    (64, 1, 12, 64 * 7 + 23),       # partial tail chunk
+    (128, 3, 15, 128 * 8 + 77),     # bz-style per-chunk tables, tail
+    (256, 2, 15, 256 * 3),
+])
+def test_walk_kernel_matches_xla_walk(chunk, K, max_len, n):
+    """The chunk-walk kernel (interpret mode) decodes exactly what the
+    XLA LUT walk decodes, for one or K per-chunk tables, two blocks
+    back to back, and a partial tail chunk."""
+    import jax
 
-    script = os.path.join(os.path.dirname(__file__),
-                          "huff_interpret_check.py")
-    try:
-        r = subprocess.run([sys.executable, script],
-                           capture_output=True, text=True, timeout=420)
-    except subprocess.TimeoutExpired:
-        pytest.skip("interpret-mode compile exceeded 420s (known "
-                    "XLA:CPU pathology)")
-    assert r.returncode == 0 and "EQUAL" in r.stdout, (
-        r.stdout[-500:], r.stderr[-500:])
+    from tpulc.codecs.huffman.decode import huffman_decode_uniform_packed
+    from tpulc.codecs.huffman.device_tables import canonical_lut_packed
+    from tpulc.codecs.huffman.pallas_decode import walk_chunks
+    from tpulc.codecs.huffman.tables import HuffmanTable
+
+    rng = np.random.default_rng(chunk + K + n)
+    alpha = 257 if max_len == 15 else 256
+    tables, lens_k = [], []
+    for _ in range(K):
+        freqs = rng.zipf(1.3, alpha) * (rng.random(alpha) < 0.8)
+        freqs[rng.integers(alpha)] += 1
+        t = HuffmanTable.from_freqs(freqs, max_len)
+        tables.append((t.codes, t.lengths))
+        lens_k.append(np.asarray(t.lengths, np.int32))
+    luts = jax.vmap(lambda ln: canonical_lut_packed(ln, max_len))(
+        jnp.asarray(np.stack(lens_k)))
+    nsub = -(-n // chunk)
+    blocks, want = [], []
+    for b in range(2):
+        sel = rng.integers(0, K, size=nsub)
+        live = [np.flatnonzero(np.asarray(tables[k][1]) > 0)
+                for k in range(K)]
+        syms = np.concatenate([rng.choice(live[sel[c]], chunk)
+                               for c in range(nsub)])[:n]
+        words, offs, total = _pack_chunks(syms, tables, sel, chunk)
+        lut_base = jnp.asarray(sel << max_len, jnp.int32)
+        ref = huffman_decode_uniform_packed(
+            jnp.asarray(np.append(words, np.zeros(4, np.uint32))),
+            jnp.int32(total), nsub * chunk, luts.reshape(-1), max_len,
+            jnp.asarray(offs), chunk, out_dtype=jnp.int32,
+            lut_base=lut_base)
+        np.testing.assert_array_equal(np.asarray(ref)[:n], syms)
+        blocks.append((words, offs, total, sel))
+        want.append(np.asarray(ref))
+    w_pad = max(len(b[0]) for b in blocks) + 2
+    flat = np.zeros(2 * w_pad, np.uint32)
+    for b, (words, _, _, _) in enumerate(blocks):
+        flat[b * w_pad: b * w_pad + len(words)] = words
+    offs = np.concatenate([b[1] for b in blocks])
+    ends = np.concatenate([np.append(b[1][1:], b[2]) for b in blocks])
+    wbase = np.repeat(np.arange(2) * w_pad, nsub)
+    sel = np.concatenate([b[3] for b in blocks])
+    got = walk_chunks(jnp.asarray(flat), jnp.asarray(wbase),
+                      jnp.asarray(offs), jnp.asarray(ends),
+                      luts.reshape(-1), jnp.asarray(sel << max_len),
+                      chunk, max_len, interpret=True)
+    got = np.asarray(got).reshape(2, nsub * chunk)
+    for b in range(2):
+        np.testing.assert_array_equal(got[b][:n], want[b][:n])
+        assert not got[b][n:].any()      # steps past the end bit hold 0
+
+
+def _aligned_batch(seed=3, n=3 * 5000 + 1234, block=5000):
+    rng = np.random.default_rng(seed)
+    data = (rng.zipf(1.5, n) % 256).astype(np.uint8)
+    comp = driver.compress(data.tobytes(), block_size=block)
+    from tpulc.pipeline.container import Container
+
+    c = Container.from_bytes(comp)
+    return data, c, driver._parse_aligned_group(
+        c.payloads, c.block_size, DEFAULT_MAX_LEN)
+
+
+def test_batch_walk_matches_rank_decoder():
+    """The huffman batch layout (one table per block, blocks back to
+    back) through the kernel in interpret mode equals the XLA rank
+    decoder on every valid symbol of a batch with a partial tail
+    block."""
+    data, c, (words, tbits, lens, offs, ns, chunk) = _aligned_batch()
+    args = tuple(jnp.asarray(x) for x in (words, tbits, lens, offs))
+    got = np.asarray(driver._decode_batch_walk(
+        *args, chunk, DEFAULT_MAX_LEN, interpret=True))
+    ref = np.asarray(driver._decode_batch_ranks(
+        *args, chunk, DEFAULT_MAX_LEN))
+    assert got.shape == ref.shape
+    start = 0
+    for j, nj in enumerate(ns):
+        np.testing.assert_array_equal(got[j, :nj], ref[j, :nj])
+        np.testing.assert_array_equal(got[j, :nj],
+                                      data[start: start + nj])
+        start += nj
+
+
+@pytest.mark.gpu
+def test_batch_walk_compiled_matches_rank_decoder():
+    """The kernel as compiled for the GPU equals the XLA rank decoder."""
+    data, c, (words, tbits, lens, offs, ns, chunk) = _aligned_batch()
+    args = tuple(jnp.asarray(x) for x in (words, tbits, lens, offs))
+    got = np.asarray(driver._decode_batch_walk(*args, chunk,
+                                               DEFAULT_MAX_LEN))
+    ref = np.asarray(driver._decode_batch_ranks(*args, chunk,
+                                                DEFAULT_MAX_LEN))
+    for j, nj in enumerate(ns):
+        np.testing.assert_array_equal(got[j, :nj], ref[j, :nj])
+
+
+def test_odd_chunk_rejected():
+    with pytest.raises(ValueError):
+        driver.compress(b"abc" * 100, block_size=1024, chunk_syms=63)

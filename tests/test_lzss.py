@@ -1,7 +1,7 @@
-"""LZSS: TPU codec vs the bit-exact C gold (lzss-0.6.2 compatible).
+"""LZSS: the device codec vs the bit-exact C gold (lzss-0.6.2 compatible).
 
 Interop matrix (the reference's own test strategy, SURVEY.md §4.5):
-gold encode -> TPU decode, TPU encode -> gold decode, TPU round trip,
+gold encode -> device decode, device encode -> gold decode, round trip,
 and compressed size <= the reference encoder's.
 """
 
@@ -15,7 +15,7 @@ from tpulc.gold.lzss_gold import lzss_encode as gold_encode
 
 
 def _pg(n):
-    with open("/root/reference/cuda-lzss-unknown/pg1661.txt", "rb") as f:
+    with open("tests/data/pg1661.txt", "rb") as f:
         return f.read()[:n]
 
 

@@ -20,9 +20,7 @@ _WORKER = r"""
 import sys
 import jax
 jax.config.update("jax_platforms", "cpu")
-port, pid, data_f, out_f, cache_dir = sys.argv[1:6]
-jax.config.update("jax_compilation_cache_dir", cache_dir)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+port, pid, data_f, out_f = sys.argv[1:5]
 jax.distributed.initialize(
     coordinator_address=f"localhost:{port}",
     num_processes=2,
@@ -56,21 +54,16 @@ def test_two_process_multihost_roundtrip(tmp_path):
     out_f = tmp_path / "out.tplc"
     port = _free_port()
 
-    from tpulc.utils.cachedir import machine_cache_dir
-
     repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    cache_dir = machine_cache_dir(
-        os.path.join(repo_root, ".jax_cache_cpu"))
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [repo_root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else [])
-        + [p for p in sys.path if p.endswith("_site")]
     )
     env.pop("JAX_PLATFORMS", None)
     procs = [
         subprocess.Popen(
             [sys.executable, "-c", _WORKER, str(port), str(i),
-             str(data_f), str(out_f), cache_dir],
+             str(data_f), str(out_f)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         )
         for i in range(2)

@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 
 from tpulc.primitives import parallel as par
+from tpulc.primitives.mtf import mtf_decode
 from tpulc.primitives.suffix import sa_to_bwt, suffix_array, suffix_array_np
 
 
@@ -22,7 +23,7 @@ def test_suffix_array_random_and_text():
     for data in (
         rng.integers(0, 4, size=3000).astype(np.uint8),
         np.frombuffer(
-            open("/root/reference/cuda-lzss-unknown/pg1661.txt", "rb")
+            open("tests/data/pg1661.txt", "rb")
             .read()[:5000], np.uint8
         ),
     ):
@@ -144,7 +145,7 @@ def test_dc3_matches_naive_and_device():
         np.frombuffer(b"abracadabra", np.uint8),
         rng.integers(0, 3, size=2000).astype(np.uint8),
         np.frombuffer(
-            open("/root/reference/cuda-lzss-unknown/pg1661.txt", "rb")
+            open("tests/data/pg1661.txt", "rb")
             .read()[:4000], np.uint8
         ),
     ):
@@ -161,7 +162,7 @@ def test_dc3_as_oracle_for_device_sa_large():
     from tpulc.primitives.dc3 import dc3_suffix_array
 
     data = np.frombuffer(
-        open("/root/reference/cuda-lzss-unknown/pg1661.txt", "rb")
+        open("tests/data/pg1661.txt", "rb")
         .read()[:120000], np.uint8
     )
     np.testing.assert_array_equal(
@@ -170,31 +171,26 @@ def test_dc3_as_oracle_for_device_sa_large():
     )
 
 
-def test_mtf_pallas_kernel_interpret():
-    """Pallas MTF lockstep kernel semantics (interpret mode; see the
-    module docstring for the TPU-compile status)."""
-    from tpulc.primitives.mtf import _move_to_front
-    from tpulc.primitives.mtf_pallas import mtf_decode_phase_pallas
+def _mtf_decode_np(ranks):
+    """Serial inverse MTF (the gold for arbitrary rank streams)."""
+    table = list(range(256))
+    out = np.empty(len(ranks), np.uint8)
+    for i, r in enumerate(np.asarray(ranks)):
+        sym = table.pop(int(r))
+        table.insert(0, sym)
+        out[i] = sym
+    return out
 
-    def ref_phase(table0, ranks):
-        def step(table, col):
-            sym = jnp.take_along_axis(table, col[:, None], axis=1)[:, 0]
-            return _move_to_front(table, col, sym), sym
 
-        import jax
-
-        _, syms = jax.lax.scan(step, table0, ranks.T)
-        return syms.T
-
-    rng = np.random.default_rng(15)
-    t0 = np.stack([rng.permutation(256) for _ in range(16)]).astype(np.int32)
-    r = rng.integers(0, 256, size=(16, 128)).astype(np.int32)
-    got = np.asarray(
-        mtf_decode_phase_pallas(jnp.asarray(t0), jnp.asarray(r),
-                                interpret=True)
-    )
-    want = np.asarray(ref_phase(jnp.asarray(t0), jnp.asarray(r)))
-    np.testing.assert_array_equal(got, want)
+@pytest.mark.parametrize("chunk", [64, 128])
+def test_mtf_decode_arbitrary_ranks_matches_serial(chunk):
+    """Inverse MTF of ranks that no encoder produced (any rank in
+    0..255) equals the serial gold across many chunks: the per-chunk
+    permutations and their composition scan carry the whole table."""
+    rng = np.random.default_rng(15 + chunk)
+    ranks = rng.integers(0, 256, size=16 * chunk).astype(np.uint8)
+    got = np.asarray(mtf_decode(jnp.asarray(ranks), chunk=chunk))
+    np.testing.assert_array_equal(got, _mtf_decode_np(ranks))
 
 
 def test_suffix_array_dc3_device():

@@ -8,7 +8,7 @@ from tpulc.codecs.bwt.stk import st_decode, st_encode, st_encode_np
 
 
 def _pg(n):
-    with open("/root/reference/cuda-lzss-unknown/pg1661.txt", "rb") as f:
+    with open("tests/data/pg1661.txt", "rb") as f:
         return np.frombuffer(f.read()[:n], np.uint8)
 
 

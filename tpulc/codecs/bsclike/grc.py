@@ -4,7 +4,8 @@ QLFC-class decomposition (libbsc `qlfc.cpp:448-752`): the MTF rank
 stream is coded as (rank, run-length) GROUPS — rank==1 test, exponent
 unary, tree-path-context mantissa; run==1 test, exponent, tree-path
 mantissa — instead of the RLE2 digit stream `rans_adaptive.py` codes.
-Offline pricing (`tools/sim_qlfc.py` on the bench corpus): 165.5 KB vs
+Offline pricing (an information-content simulation on the bench
+corpus, since removed): 165.5 KB vs
 the RLE2-event coder's 167.9 KB, at 16% fewer lockstep steps
 (maxbits 5799 vs 6897 per 1024-symbol lane).
 
@@ -94,7 +95,7 @@ def _binarize(ranks: jax.Array, m: jax.Array, W: int,
 
     Group starts are COMPACTED first (one 2-operand sort), so the 35
     event scatter rounds run over the ~nstarts live groups instead of
-    all cap positions (scatter cost is per SOURCE element on TPU), and
+    all cap positions (scatter cost is per SOURCE element), and
     the prev/prev2 context gathers become shifts of the compact array.
     `bs` is the static start-count bucket (host-derived from the
     `grc_lane_bits` pre-pass; None = cap, always safe)."""
@@ -323,8 +324,7 @@ def _stats_quant(gmb: jax.Array):
 
     Two scatter-adds, not four: the families partition the model id
     space, so the coarse counts are segment-sums of the fine ones
-    (scatter-adds cost ~2 ms/M elements on the v5e — they were the
-    dominant -e2 encode op in the r4 trace)."""
+    (scatter-adds were the dominant -e2 encode op)."""
     # ONE histogram of the packed record value (rec = (m+1)*2+bit):
     # tot/ones fall out as slice sums, so the four scatter-adds the r4
     # trace measured at ~73 ms each collapse into a single one — and

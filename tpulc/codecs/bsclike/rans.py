@@ -1,6 +1,6 @@
 """Chunk-interleaved static rANS coder.
 
-The TPU-native answer to libbsc's QLFC binary range coder
+A data-parallel answer to libbsc's QLFC binary range coder
 (`libbsc/coder/qlfc/`, serial bit-by-bit with adaptive models): range
 coding is inherently sequential per stream, so — exactly like bsc's
 coder framework, which splits each block into ~64 sub-blocks coded in
@@ -166,7 +166,7 @@ def rans_decode(words: jax.Array, counts: jax.Array, states: jax.Array,
 
 
 # ---------------------------------------------------------------------------
-# Order-2 context-conditioned rANS (QLFC-grade modeling, TPU-shaped).
+# Order-2 context-conditioned rANS (QLFC-grade modeling, lane-parallel).
 #
 # libbsc's QLFC coder conditions every binary decision on neighboring
 # rank statistics with adaptive models (`qlfc.cpp:448-752`,
@@ -355,7 +355,7 @@ def rans_decode_ctx_chained(words: jax.Array, counts: jax.Array,
 # ---------------------------------------------------------------------------
 # Batched (multi-block) context rANS: all blocks' lanes run in ONE
 # lockstep loop.  The serial axis (symbols within a lane) is the
-# wall-clock cost on TPU; lanes are nearly free — so B blocks coded
+# wall-clock cost; lanes are nearly free — so B blocks coded
 # together cost ~1/B the dispatches of per-block loops.  Per-block
 # tables stack as [B*NCTX, S]; the caller pre-offsets each block's
 # context ids by block*NCTX.

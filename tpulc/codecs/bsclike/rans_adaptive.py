@@ -8,7 +8,8 @@ vectorize across a block — but it DOES vectorize across lanes: cut the
 symbol stream into fixed lanes, restart every lane's models from
 block-static initial probabilities (wired, one u16 per model), and run
 all lanes' bit decisions in lockstep.  Offline pricing on the bench
-corpus (`tools/sim_adaptive.py`): static order-2 rANS 176.7 KB,
+corpus (an information-content simulation, since removed): static
+order-2 rANS 176.7 KB,
 this coder 167.9 KB, libbsc's global-adaptation regime 164.9 KB.
 
 Event decomposition per RLE2 symbol s (alphabet 0..256), the
@@ -238,9 +239,8 @@ def abc_encode(syms2: jax.Array, ms: jax.Array, inits: jax.Array,
         e = gmb[:, t]
         m = jnp.maximum(e // 2 - 1, 0)
         upd = e > 0
-        # one-hot select instead of gather/scatter: a TPU scatter costs
-        # tens of µs in fixed overhead per loop step; masked ops over
-        # the small [L, NMODELS] state are ~µs.
+        # one-hot select instead of gather/scatter: masked ops over
+        # the small [L, NMODELS] state stay elementwise per loop step.
         hit = mcol == m[:, None]
         p = jnp.sum(jnp.where(hit, pstate, 0), axis=1)
         probs = jax.lax.dynamic_update_slice(

@@ -3,7 +3,7 @@
 Covers the reference's three block-sorters (SURVEY.md §2.4-2.6):
 cudpp's DC3 suffix-array BWT (`sa_app.cu`), cuda-bzip2's iterative
 segmented-doubling sort (`gpuBWTSort.cu:202-480`) and libbsc's
-bounded-context sort transform (`st2.cu`).  The TPU implementations are
+bounded-context sort transform (`st2.cu`).  The implementations here are
 built on `jax.lax.sort` + associative scans:
 
 - `rotsort`: full rotation-sort BWT by prefix doubling (the same

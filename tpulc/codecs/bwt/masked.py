@@ -1,14 +1,13 @@
 """Dynamic-length block-sorting pipeline at fixed compiled shape.
 
 BWT cannot run on zero-padded data as-is (padding changes the
-rotations), but recompiling per data length is prohibitive on TPU.
+rotations), but recompiling per data length is prohibitive.
 These variants take a fixed capacity `cap` and a traced valid length
 `n` (the bsc-class codec's LZP output length and the .bz2 emitter's
 RLE1 block lengths are data dependent — SURVEY.md §2.5/2.6).
 
-Performance model (same cost rules as `rotsort`, measured on v5e):
-sorts are the cheap primitive, gathers/scatters the expensive ones.
-The wraparound read ``rank[(i + k) mod n]`` is NOT a gather here: the
+Design (same rules as `rotsort`): sorts and contiguous slices rather
+than random gathers/scatters.  The wraparound read ``rank[(i + k) mod n]`` is NOT a gather here: the
 rank vector is copied into a doubled buffer (one dynamic_update_slice)
 and every composed key becomes a `dynamic_slice` at traced offset
 ``(j*k) mod n`` — so a fan-F refinement round costs one copy, F-1

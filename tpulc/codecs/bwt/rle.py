@@ -2,7 +2,7 @@
 
 bzip2's `generateMTFValues` (`cuda-bzip2-ipdpsw/compress.c:123-240`)
 replaces runs of MTF-rank zeros with bijective base-2 digits RUNA/RUNB
-serially.  Both directions are scans on TPU:
+serially.  Both directions are scans here:
 
 encode: zero-run starts/lengths via max/min scans; a run of L zeros
   emits k = floor(log2(L+1)) digits, digit i = bit i of (L+1) (LSB
@@ -59,7 +59,7 @@ def rle2_encode(ranks: jax.Array):
     # run digits elementwise: output slot t of a run starting at output
     # offset o carries bit (t - o) of M.  One scatter + one
     # "latest record" scan replace per-digit scatter passes and the
-    # record gather (scatters/gathers are the costly primitives on TPU).
+    # record gather.
     tok = ~z | is_run_start
     tok_tgt = jnp.where(tok, off, n)
     # record: run start -> M | RUNBIT, literal -> r+1 (one packed int);
@@ -109,8 +109,7 @@ def rle2_decode(symbols: jax.Array, m: jax.Array):
     # Zeros emitted by each group, summed at the group-start position:
     # a reverse SEGMENTED sum-scan with literal positions as segment
     # resets puts each group's digit total on every member, in
-    # particular its start (a scan costs ~1/4 of the scatter-add this
-    # replaces on TPU).
+    # particular its start (a scan in place of a scatter-add).
     rv = contrib[::-1]
     rf = (~isrun)[::-1]
 

@@ -112,7 +112,7 @@ def cuhd_decode(stream: bytes, lengths: dict[int, int], n_out: int
                 ) -> np.ndarray:
     """Decode a raw cuhd unit stream given the (symbol -> length) table.
 
-    Self-synchronizing parallel decode — the TPU realization of the
+    Self-synchronizing parallel decode — tpulc's realization of the
     4-phase gap-array algorithm (`cuhd_gpu_decoder.cu:422-520`), with
     the demo's 128-bit subsequences.
     """

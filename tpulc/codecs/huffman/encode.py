@@ -2,7 +2,7 @@
 
 cudpp encodes per 4096-char block with per-thread serial bit counts, an
 intra-block serial offset sum, and atomicOr packing
-(`huffman_kernel_en`, `compress_kernel.cuh:2525-2716`).  The TPU version
+(`huffman_kernel_en`, `compress_kernel.cuh:2525-2716`).  The version here
 is one global op chain with no atomics and no block partitioning:
 
     gather (code, len) per byte  ->  exclusive cumsum of lengths

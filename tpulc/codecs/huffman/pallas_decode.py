@@ -1,26 +1,25 @@
-"""Pallas TPU kernel for the chunked Huffman symbol walk.
+"""Aligned-chunk Huffman walk as a Pallas kernel on the Triton route.
 
-The aligned decode (`decode.huffman_decode_uniform*`) is a serial
-C-step loop whose XLA form pays 2 HBM gathers per step (bit window +
-LUT).  This kernel keeps everything in VMEM: chunks ride the 128 lanes,
-each chunk's word slice sits on the sublane axis, and the codeword
-length comes from a LUT-free canonical compare chain (first length l
-with ``win >> (L-l) < lim[l]``, cuhd table semantics rebuilt from
-lengths — see `device_tables.canonical_decode_params`).
+The GPU shape of CUHD's decoder (`cuhd_gpu_decoder.cu:91-139`): one
+thread walks one chunk, whose start bit is known from the container's
+offset table.  Each thread keeps a 64-bit bit reservoir in two uint32
+registers, refills it with one 32-bit load per symbol pair, and
+resolves every codeword with one lookup in a packed `(sym << 4) | len`
+table of 2^L entries (small enough to stay in L1/L2).  The symbol for
+step t of every chunk in a tile leaves as one coalesced row of a
+step-major `[chunk_syms, nsub]` result.
 
-Per step and lane: two masked sublane reductions fetch the straddling
-word pair, a 15-way unrolled compare finds the code length, and the
-CANONICAL INDEX (not the symbol) is emitted — the caller maps indices
-to symbols afterwards with one MXU one-hot contraction, which also
-absorbs per-chunk table selectors (bzip2 multi-table mode,
-`compress.c:242-600`).
+One kernel serves both callers: `huffman` (one table per block, many
+blocks per batch) and `bz` (one of K tables per chunk).  Each chunk
+names its table by `lut_base`, the offset of its table in the flat
+`lut`, and its block by `wbase`, the word offset of its block's stream
+in the flat `words`.  Bit positions stay block-relative, so batches
+whose total bit count exceeds 2^31 index correctly.
 
-Mosaic constraints shaping the design (this chip):
-  - no gathers across >1 source vreg -> no 2^15 LUT, no 257-entry
-    symbol map in-kernel;
-  - dynamic VMEM indexing must be 128-aligned -> word fetch is a
-    masked reduction over the sublane axis, not an index;
-  - per-lane variable shifts are native.
+`interpret=True` runs the same kernel through the Pallas interpreter
+(the CPU tests); the plain XLA forms are
+`decode.huffman_decode_ranks_batch` and
+`decode.huffman_decode_uniform_packed`.
 """
 
 from __future__ import annotations
@@ -30,586 +29,113 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-NL = 128        # chunks per grid step (lane dimension)
-ROW_WORDS = 64  # words of stream per chunk row (>= 62, see driver calc)
-
+TILE = 128      # chunks per program: one thread each at 4 warps
 _U32 = jnp.uint32
 
 
-def _kernel(max_len: int, chunk_syms: int, row_words: int,
-            wrow_ref, pos_ref, end_ref, lim_ref, base_ref, out_ref):
+def _shl(x, s):
+    """x << s for s in [0, 32] (a 32-bit shift by 32 is undefined)."""
+    return jnp.where(s < 32, x << jnp.clip(s, 0, 31).astype(_U32), _U32(0))
+
+
+def _shr(x, s):
+    """x >> s (logical) for s in [0, 32]."""
+    return jnp.where(s < 32, x >> jnp.clip(s, 0, 31).astype(_U32), _U32(0))
+
+
+def _walk_kernel(max_len: int, chunk_syms: int, n_words: int,
+                 words_ref, wbase_ref, pos_ref, end_ref, lbase_ref, lut_ref,
+                 out_ref):
     L = max_len
-    sub = jax.lax.broadcasted_iota(jnp.int32, (row_words, NL), 0)
-    wrow = wrow_ref[:, :]                          # [row_words, NL] i32 bits
-    pos0 = pos_ref[0, :]                           # [NL] i32 (bits, row-rel)
-    end = end_ref[0, :]
-    lim = lim_ref[:, :]                            # [L+1, NL] i32
-    base = base_ref[:, :]
+    wbase = wbase_ref[...]
+    pos = pos_ref[...]
+    left = end_ref[...] - pos
+    lbase = lbase_ref[...]
 
-    def body(t, state):
-        pos, out = state
-        active = pos < end
-        widx = pos >> 5
-        # Mosaic has no unsigned reductions: mask/sum in int32 (rows
-        # arrive bitcast), reinterpret as u32 only for the shifts.
-        m0 = (sub == widx[None, :]).astype(jnp.int32)
-        m1 = (sub == (widx + 1)[None, :]).astype(jnp.int32)
-        w0 = jnp.sum(m0 * wrow, axis=0).astype(_U32)  # [NL]
-        w1 = jnp.sum(m1 * wrow, axis=0).astype(_U32)
-        b = (pos & 31).astype(_U32)
-        hi = w0 << b
-        lo = jnp.where(b > 0, w1 >> (_U32(32) - b), _U32(0))
-        win = ((hi | lo) >> _U32(32 - L)).astype(jnp.int32)  # top L bits
+    def word(i):
+        return words_ref[jnp.clip(wbase + i, 0, n_words - 1)]
 
-        ln = jnp.zeros((NL,), jnp.int32)
-        ci = jnp.zeros((NL,), jnp.int32)
-        found = jnp.zeros((NL,), jnp.bool_)
-        for l in range(1, L + 1):
-            code = win >> (L - l)
-            hit = (~found) & (code < lim[l, :])
-            ln = jnp.where(hit, l, ln)
-            ci = jnp.where(hit, base[l, :] + code, ci)
-            found = found | hit
-        ln = jnp.where(found, ln, 1)               # corrupt-stream guard
+    # Reservoir: `nav` valid bits, MSB-first, across (hi, lo).
+    fidx = pos >> 5
+    b = pos & 31
+    w0, w1 = word(fidx), word(fidx + 1)
+    hi = _shl(w0, b) | _shr(w1, 32 - b)
+    lo = _shl(w1, b)
+    nav = 64 - b
+    fidx = fidx + 2
 
-        # masked row write (dynamic_update_slice doesn't lower in Mosaic)
-        row = jax.lax.broadcasted_iota(jnp.int32, out.shape, 0)
-        val = jnp.broadcast_to(jnp.where(active, ci, 0)[None, :], out.shape)
-        out = jnp.where(row == t, val, out)
-        pos = pos + jnp.where(active, ln, 0)
-        return pos, out
+    def one_symbol(hi, lo, nav, left):
+        p = lut_ref[lbase + (hi >> (32 - L)).astype(jnp.int32)]
+        ln = p & 15
+        ln = jnp.where(ln == 0, 1, ln)           # corrupt-stream guard
+        active = left > 0
+        sym = jnp.where(active, p >> 4, 0)
+        st = jnp.where(active, ln, 0)
+        hi = _shl(hi, st) | _shr(lo, 32 - st)
+        lo = _shl(lo, st)
+        return sym, hi, lo, nav - st, left - st
 
-    out0 = jnp.zeros((chunk_syms, NL), jnp.int32)
-    _, out = jax.lax.fori_loop(0, chunk_syms, body, (pos0, out0))
-    out_ref[:, :] = out
-
-
-@partial(jax.jit, static_argnames=("chunk_syms", "max_len",
-                                   "row_words"))
-def decode_canonical_indices(words_p: jax.Array,
-                             chunk_bit_offsets: jax.Array,
-                             total_bits: jax.Array,
-                             lim_chunk: jax.Array,
-                             base_chunk: jax.Array,
-                             chunk_syms: int,
-                             max_len: int,
-                             row_words: int = ROW_WORDS) -> jax.Array:
-    """Decode every chunk's canonical indices.
-
-    Args:
-      words_p: uint32[W] padded stream (>= 2 pad words).
-      chunk_bit_offsets: int32[nsub] absolute start bit per chunk
-        (empty chunks point at total_bits).
-      total_bits: scalar int32.
-      lim_chunk/base_chunk: int32[nsub, max_len+1] per-chunk canonical
-        params (already table-selected for multi-table blocks).
-      chunk_syms: symbols per chunk (static).
-
-    Returns int32[nsub, chunk_syms] canonical indices (0 past the end).
-    """
-    nsub = chunk_bit_offsets.shape[0]
-    pad = -(-nsub // NL) * NL
-    L = max_len
-
-    start_word = chunk_bit_offsets >> 5
-    # Word rows: chunk spans <= 31 + chunk_syms*L bits, +1 word for the
-    # straddle fetch.
-    need = -(-(31 + chunk_syms * L) // 32) + 1
-    assert need <= row_words, (need, row_words)
-    rows = words_p[
-        jnp.clip(start_word[:, None] + jnp.arange(row_words)[None, :],
-                 0, words_p.shape[0] - 1)
-    ]                                               # [nsub, row_words]
-    pos_rel = chunk_bit_offsets - (start_word << 5)
-    end_rel = jnp.minimum(
-        total_bits.astype(jnp.int32) - (start_word << 5),
-        pos_rel + chunk_syms * L,
-    )
-
-    def padlanes(x, fill=0):
-        return jnp.pad(x, [(0, pad - nsub)] + [(0, 0)] * (x.ndim - 1),
-                       constant_values=fill)
-
-    rows_t = jax.lax.bitcast_convert_type(
-        padlanes(rows), jnp.int32
-    ).T                                             # [ROW_WORDS, pad]
-    pos_t = padlanes(pos_rel)[None, :]              # [1, pad]
-    end_t = padlanes(end_rel)[None, :]
-    lim_t = padlanes(lim_chunk).T                   # [L+1, pad]
-    base_t = padlanes(base_chunk).T
-
-    out = pl.pallas_call(
-        partial(_kernel, max_len, chunk_syms, row_words),
-        out_shape=jax.ShapeDtypeStruct((chunk_syms, pad), jnp.int32),
-        grid=(pad // NL,),
-        in_specs=[
-            pl.BlockSpec((row_words, NL), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, NL), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, NL), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((L + 1, NL), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((L + 1, NL), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((chunk_syms, NL), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-    )(rows_t, pos_t, end_t, lim_t, base_t)
-    return out[:, :nsub].T                          # [nsub, chunk_syms]
-
-
-# ---------------------------------------------------------------------
-# v2: buffered walk — sublane-packed lanes, one fetch per symbol pair
-# ---------------------------------------------------------------------
-#
-# The v1 kernel above pays, per symbol, two full masked sublane
-# reductions (the straddling word pair) plus an O(chunk_syms) masked
-# write of the whole output tile — and all its per-chunk state is 1-D
-# [128], which Mosaic lays out on a single sublane: 7/8 of the VPU
-# idles.  v2 restructures the walk three ways:
-#
-#   1. SUBLANE PACKING: 1024 chunks per grid step as [8, 128] state —
-#      every elementwise op runs on full (8,128) vregs.  Each sublane
-#      group s has its own [row_words, 128] stream plane.
-#   2. BIT RESERVOIR: per-chunk 64-bit buffer (hi, lo u32), stream-
-#      MSB-aligned.  A codeword is <= L <= 16 bits, so TWO symbols
-#      consume <= 32 bits: one conditional single-word refill per
-#      symbol PAIR replaces two per-symbol window reductions.
-#   3. STATIC STORES: the pair loop is fully unrolled (chunk_syms is
-#      a small static), so ranks leave as [64, 128] slabs at static
-#      offsets instead of masked rewrites.
-#
-# Net ~0.2 VPU-cycles/symbol at chunk_syms=128 vs ~10 for v1
-# (measured r4: 0.19 GB/s for both the v1 kernel and a lane-only v2 —
-# this layout is what buys the order of magnitude).
-
-_SL = 8  # sublane groups per tile: TILE = _SL * NL = 1024 chunks
-
-
-def _kernel_buffered(max_len: int, chunk_syms: int, row_words: int,
-                     packed: bool,
-                     wrow_ref, pos_ref, end_ref, lim_ref, base_ref,
-                     out_ref):
-    L = max_len
-    assert 2 * L <= 32 and chunk_syms % 8 == 0
-    rw = row_words
-    sub = jax.lax.broadcasted_iota(jnp.int32, (rw, NL), 0)
-    wplane = [wrow_ref[s * rw:(s + 1) * rw, :] for s in range(_SL)]
-    pos0 = pos_ref[:, :]                           # [8, NL] in [0,32)
-    end = end_ref[:, :]
-    # Loop-invariant per-length params, rebuilt as [8, NL] rows once.
-    lim2 = [None] * (L + 1)
-    base2 = [None] * (L + 1)
-    for l in range(1, L + 1):
-        lim2[l] = jnp.concatenate(
-            [lim_ref[s * (L + 1) + l, :][None, :] for s in range(_SL)],
-            axis=0)
-        base2[l] = jnp.concatenate(
-            [base_ref[s * (L + 1) + l, :][None, :] for s in range(_SL)],
-            axis=0)
-
-    # Rows are 32-word-aligned slices of the stream (the wrapper's
-    # stride-32 layout makes the HBM gather per-ROW, not per-element:
-    # measured 2.7 Grow/s vs 23 Mrow/s), so the in-row start position
-    # spans [0, 1024) bits: the initial word pair is a per-lane fetch.
-    fidx0 = pos0 >> 5                               # [8, NL] in [0, 32)
-    def _fetch(tgt):
-        planes = []
-        for s in range(_SL):
-            m = (sub == tgt[s, :][None, :]).astype(jnp.int32)
-            planes.append(jnp.sum(m * wplane[s], axis=0)[None, :])
-        return jnp.concatenate(planes, axis=0).astype(_U32)  # [8, NL]
-
-    w0 = _fetch(fidx0)
-    w1 = _fetch(fidx0 + 1)
-    b = (pos0 & 31).astype(_U32)
-    bl = jnp.where(b > 0, _U32(32) - b, _U32(1))
-    hi = (w0 << b) | jnp.where(b > 0, w1 >> bl, _U32(0))
-    lo = w1 << b
-    nav = 64 - (pos0 & 31)
-    fidx = fidx0 + 2
-    bits_left = end - pos0
-
-    rows = []
-    packed_w = jnp.zeros((_SL, NL), jnp.int32)
-    for p in range(chunk_syms // 2):
-        # conditional refill, once per pair
+    def pair(t, carry):
+        hi, lo, nav, left, fidx = carry
         need = nav <= 32
-        w = _fetch(jnp.where(need, fidx, -1))
-        navu = jnp.clip(nav, 0, 31).astype(_U32)
-        shlo = jnp.clip(32 - nav, 0, 31).astype(_U32)
-        hi = hi | jnp.where(need & (nav < 32), w >> navu, _U32(0))
-        lo = lo | jnp.where(need & (nav > 0), w << shlo, _U32(0))
+        w = word(fidx)
+        hi = hi | jnp.where(need, _shr(w, nav), _U32(0))
+        lo = lo | jnp.where(need, _shl(w, 32 - nav), _U32(0))
         nav = nav + jnp.where(need, 32, 0)
         fidx = fidx + jnp.where(need, 1, 0)
-        for k in range(2):
-            win = (hi >> _U32(32 - L)).astype(jnp.int32)
-            ln = jnp.zeros((_SL, NL), jnp.int32)
-            ci = jnp.zeros((_SL, NL), jnp.int32)
-            found = jnp.zeros((_SL, NL), jnp.bool_)
-            for l in range(1, L + 1):
-                code = win >> (L - l)
-                hit = (~found) & (code < lim2[l])
-                ln = jnp.where(hit, l, ln)
-                ci = jnp.where(hit, base2[l] + code, ci)
-                found = found | hit
-            ln = jnp.where(found, ln, 1)           # corrupt-stream guard
-            active = bits_left > 0
-            t = 2 * p + k
-            if packed:
-                # pack 4 ranks per output word (byte b = symbol 4q+b):
-                # 4x less store traffic, and the un-interleave + the
-                # rank->symbol map downstream read 1 byte per symbol
-                # (requires alphabet <= 256 — the huffman codec; bz's
-                # 257-wide RLE2 alphabet keeps the unpacked layout).
-                ci8 = jnp.clip(jnp.where(active, ci, 0), 0, 255)
-                packed_w = packed_w | (ci8 << (8 * (t & 3)))
-                if t & 3 == 3:
-                    q = t >> 2
-                    out_ref[q * _SL:(q + 1) * _SL, :] = packed_w
-                    packed_w = jnp.zeros((_SL, NL), jnp.int32)
-            else:
-                rows.append(jnp.where(active, ci, 0))  # [8, NL]
-            st = jnp.where(active, ln, 0)
-            bits_left = bits_left - st
-            su = st.astype(_U32)
-            sl = jnp.where(st > 0, _U32(32) - su, _U32(1))
-            hi = (hi << su) | jnp.where(st > 0, lo >> sl, _U32(0))
-            lo = lo << su
-            nav = nav - st
-        if not packed and len(rows) == 8:
-            # rows r of the slab hold (t, s) = (r // 8, r % 8); the
-            # wrapper un-interleaves with one reshape/transpose.
-            slab = jnp.concatenate(rows, axis=0)   # [64, NL]
-            g = (2 * p + 2) // 8 - 1
-            out_ref[g * 64:(g + 1) * 64, :] = slab
-            rows = []
+        s0, hi, lo, nav, left = one_symbol(hi, lo, nav, left)
+        s1, hi, lo, nav, left = one_symbol(hi, lo, nav, left)
+        out_ref[2 * t, :] = s0.astype(out_ref.dtype)
+        out_ref[2 * t + 1, :] = s1.astype(out_ref.dtype)
+        return hi, lo, nav, left, fidx
+
+    jax.lax.fori_loop(0, chunk_syms // 2, pair, (hi, lo, nav, left, fidx))
 
 
-@partial(jax.jit, static_argnames=("chunk_syms", "max_len",
-                                   "row_words", "interpret", "packed"))
-def decode_canonical_indices_buffered(
-        words_p: jax.Array,
-        chunk_bit_offsets: jax.Array,
-        total_bits: jax.Array,
-        lim_chunk: jax.Array,
-        base_chunk: jax.Array,
-        chunk_syms: int,
-        max_len: int,
-        row_words: int,
-        interpret: bool = False,
-        packed: bool = False) -> jax.Array:
-    """Same contract as `decode_canonical_indices`, via the buffered
-    sublane-packed kernel.  `row_words` must cover
-    ceil((31 + chunk_syms*L)/32) + 1 and be a multiple of 8.
-
-    With `packed=True` (alphabet <= 256 only) the return is
-    int32[nsub, chunk_syms/4] with byte b of word q holding the rank
-    of symbol 4q+b — 4x less kernel store traffic and a byte-wide
-    downstream pipeline."""
-    nsub = chunk_bit_offsets.shape[0]
-    TILE = _SL * NL
-    pad = -(-nsub // TILE) * TILE
-    T = pad // TILE
-    L = max_len
-    rw = row_words
-
-    # Per-chunk word rows via ONE aligned row gather: a dim-0 gather of
-    # 32-multiple-width rows from a stride-32 x3 overlapped layout runs
-    # at HBM bandwidth (measured 2.7 Grow/s on the v5e), while the
-    # arbitrary-start windowed gather this replaces lowered per-element
-    # (~23 Mrow/s — it WAS the decoder's wall at 80% of runtime).
-    need = -(-(31 + chunk_syms * L) // 32) + 1
-    assert 31 + need <= rw and rw % 32 == 0, (need, rw)
-    dup = rw // 32
-    Wp = words_p.shape[0]
-    R = -(-Wp // 32)
-    wz = jnp.concatenate(
-        [words_p, jnp.zeros(R * 32 - Wp + (dup - 1) * 32, jnp.uint32)])
-    lay = jnp.concatenate(
-        [jax.lax.dynamic_slice_in_dim(wz, 32 * d, R * 32).reshape(R, 32)
-         for d in range(dup)], axis=1)              # [R, rw]
-    srow = jnp.clip(chunk_bit_offsets >> 10, 0, R - 1)
-    rows = lay[srow]                                # [nsub, rw]
-    base_bits = srow << 10
-    pos_rel = chunk_bit_offsets - base_bits         # [0, 1024)
-    end_rel = jnp.minimum(
-        total_bits.astype(jnp.int32) - base_bits,
-        pos_rel + chunk_syms * L,
-    )
-
-    def padc(x, fill=0):
-        return jnp.pad(x, [(0, pad - nsub)] + [(0, 0)] * (x.ndim - 1),
-                       constant_values=fill)
-
-    # chunk c = (i*_SL + s) * NL + l  ->  tile i, sublane group s, lane l
-    rows_t = jax.lax.bitcast_convert_type(
-        padc(rows), jnp.int32
-    ).reshape(T, _SL, NL, rw).transpose(0, 1, 3, 2).reshape(
-        T * _SL * rw, NL)
-    pos_t = padc(pos_rel).reshape(T * _SL, NL)
-    end_t = padc(end_rel).reshape(T * _SL, NL)
-    lim_t = padc(lim_chunk).reshape(T, _SL, NL, L + 1).transpose(
-        0, 1, 3, 2).reshape(T * _SL * (L + 1), NL)
-    base_t = padc(base_chunk).reshape(T, _SL, NL, L + 1).transpose(
-        0, 1, 3, 2).reshape(T * _SL * (L + 1), NL)
-
-    Q = chunk_syms // 4 if packed else chunk_syms
-    out = pl.pallas_call(
-        partial(_kernel_buffered, max_len, chunk_syms, rw, packed),
-        out_shape=jax.ShapeDtypeStruct((T * Q * _SL, NL), jnp.int32),
-        grid=(T,),
-        in_specs=[
-            pl.BlockSpec((_SL * rw, NL), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_SL, NL), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_SL, NL), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_SL * (L + 1), NL), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_SL * (L + 1), NL), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((Q * _SL, NL),
-                               lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(rows_t, pos_t, end_t, lim_t, base_t)
-    # out rows within a tile: r = t*_SL + s  (t = symbol or packed-word
-    # index); un-interleave back to [chunk, t].
-    out = out.reshape(T, Q, _SL, NL).transpose(0, 2, 3, 1)
-    return out.reshape(pad, Q)[:nsub]
-
-
-# ---------------------------------------------------------------------
-# v3: flat whole-batch walk — bit-normalized rows, interleaved planes,
-# statically-bounded refill windows, monotone left-justified chain
-# ---------------------------------------------------------------------
-#
-# v2 still pays three structural taxes that a kernel restructure
-# removes (r5):
-#
-#   1. PER-BLOCK DISPATCH: the batch wrapper lax.map's over blocks, so
-#      a 100 MB decode issues ~100 sequential pallas programs plus 100
-#      wrapper transposes and rank->symbol maps.  v3 flattens every
-#      block's chunks into ONE grid (the per-chunk lim/base tables
-#      already made the kernel block-agnostic).
-#   2. POSITION BOOKKEEPING: v2 fetches the initial straddling word
-#      pair with two masked reductions and tracks an in-row bit
-#      position.  v3 normalizes each chunk's row OUTSIDE the kernel
-#      (word-rotate + funnel bit-shift, a fused elementwise XLA pass)
-#      so every stream starts at bit 0 of word 0: the initial fill is
-#      a static slice and `pos` disappears from the kernel state.
-#   3. FULL-ROW REFILL MASKS: v2's per-pair refill reduces over all
-#      row_words sublanes.  With normalized rows the refill word index
-#      at pair p is provably inside
-#          [2 + max(0, ceil((2p-64)/32)), 2 + max(0, (2Lp-32)//32)]
-#      (codeword length in [1, L], L <= 16, reservoir never exceeds
-#      64 bits), so the reduction window is static per unrolled pair
-#      and grows from 1 word to ~3p/4 — ~2.5x fewer fetch ops.
-#
-# The codeword classifier also drops from a ~7-op-per-length predicated
-# chain to a monotone count: left-justified canonical code regions are
-# nested, so with LJ[l] = lim[l] << (L-l),
-#     len(win) = 1 + sum_{l=1}^{L-1} (win >= LJ[l])
-# (2 ops per length), and only the base[] lookup keeps a select chain.
-
-_WSLACK = 1  # extra refill-window word each side (defensive margin)
-_PARA = 32   # words per gathered row paragraph (128 B; see fetch note)
-
-
-def _kernel_flat(max_len: int, chunk_syms: int, row_words: int,
-                 w_ref, pos_ref, bl_ref, lj_ref, base_ref, out_ref):
-    L = max_len
-    rw = row_words
-    assert 2 * L <= 32 and chunk_syms % 4 == 0
-
-    def Wi(w):                                     # int32 [8, NL]
-        return w_ref[w * _SL:(w + 1) * _SL, :]
-
-    # Tables are per tile (every chunk of a tile belongs to one block
-    # by construction), shipped as lane-broadcast VMEM planes: one
-    # (8, NL) vreg per length — SMEM can't hold [T, 13] at T ~ 1024,
-    # and per-chunk planes cost a 100 MB transpose.
-    lj = [None] + [lj_ref[l * _SL:(l + 1) * _SL, :]
-                   for l in range(1, L + 1)]
-    base = [None] + [base_ref[l * _SL:(l + 1) * _SL, :]
-                     for l in range(1, L + 1)]
-    bits_left = bl_ref[:, :]                       # [8, NL] i32
-    # In-kernel row normalization: pos0 in [0, 1024) is the bit offset
-    # of the stream inside this row (rows are 1024-bit-aligned 128-byte
-    # paragraphs — 32-byte paragraph gathers ran at ~2 GB/s on the v5e
-    # while 128-byte-class rows gather at HBM bandwidth; the wider
-    # in-kernel fetch windows this costs are far cheaper).
-    pos0 = pos_ref[:, :]
-    fidx0 = pos0 >> 5                              # [0, 32)
-    b = (pos0 & 31).astype(_U32)
-
-    def fetch(tgt, lo_w, hi_w):
-        acc = jnp.zeros((_SL, NL), jnp.int32)
-        for w in range(lo_w, hi_w + 1):
-            acc = acc + jnp.where(tgt == w, Wi(w), 0)
-        return acc.astype(_U32)
-
-    w0 = fetch(fidx0, 0, _PARA - 1)
-    w1 = fetch(fidx0 + 1, 1, _PARA)
-    blsh = jnp.where(b > 0, _U32(32) - b, _U32(1))
-    hi = (w0 << b) | jnp.where(b > 0, w1 >> blsh, _U32(0))
-    lo = w1 << b
-    nav = 64 - (pos0 & 31)
-    fidx = fidx0 + 2
-    packed = jnp.zeros((_SL, NL), jnp.int32)
-
-    for p in range(chunk_syms // 2):
-        # refill (once per symbol pair): bounded-window masked fetch.
-        # fidx = fidx0 + 2 + t with fidx0 in [0, _PARA) and t (refills
-        # so far) provably in [ceil((2p-64)/32), (2Lp)//32 + 2]
-        # (codeword length in [1, L], reservoir holds (0, 64] bits).
-        need = nav <= 32
-        w_lo = max(2, 2 - _WSLACK + max(0, -(-(2 * p - 64) // 32)))
-        w_hi = min(rw - 1,
-                   _PARA + 1 + _WSLACK + (2 * L * p) // 32 + 2)
-        wv = fetch(jnp.where(need, fidx, -1), w_lo, w_hi)
-        navu = jnp.clip(nav, 0, 31).astype(_U32)
-        shlo = jnp.clip(32 - nav, 0, 31).astype(_U32)
-        hi = hi | jnp.where(need & (nav < 32), wv >> navu, _U32(0))
-        lo = lo | jnp.where(need & (nav > 0), wv << shlo, _U32(0))
-        nav = nav + jnp.where(need, 32, 0)
-        fidx = fidx + jnp.where(need, 1, 0)
-        for k in range(2):
-            win = (hi >> _U32(32 - L)).astype(jnp.int32)
-            ln = jnp.ones((_SL, NL), jnp.int32)
-            for l in range(1, L):
-                ln = ln + (win >= lj[l]).astype(jnp.int32)
-            found = win < lj[L]
-            ln = jnp.where(found, ln, 1)
-            code = win >> jnp.clip(L - ln, 0, 31)
-            bsel = base[1]
-            for l in range(2, L + 1):
-                bsel = jnp.where(ln == l, base[l], bsel)
-            ci = jnp.where(found, bsel + code, 0)
-            active = bits_left > 0
-            t = 2 * p + k
-            # pack 4 ranks per output word (little-endian byte order):
-            # 4x less store traffic, and the un-interleave + symbol-map
-            # stages downstream read 1 byte/symbol instead of 4.
-            ci8 = jnp.clip(jnp.where(active, ci, 0), 0, 255)
-            packed = packed | (ci8 << (8 * (t & 3)))
-            if t & 3 == 3:
-                q = t >> 2
-                out_ref[q * _SL:(q + 1) * _SL, :] = packed
-                packed = jnp.zeros((_SL, NL), jnp.int32)
-            st = jnp.where(active, ln, 0)
-            bits_left = bits_left - st
-            su = st.astype(_U32)
-            sl = jnp.where(st > 0, _U32(32) - su, _U32(1))
-            hi = (hi << su) | jnp.where(st > 0, lo >> sl, _U32(0))
-            lo = lo << su
-            nav = nav - st
-
-
-@partial(jax.jit, static_argnames=("chunk_syms", "max_len", "row_words",
+@partial(jax.jit, static_argnames=("chunk_syms", "max_len", "out_dtype",
                                    "interpret"))
-def decode_canonical_indices_flat(
-        rows_norm: jax.Array,      # uint32 [nsub, rw] raw aligned rows
-        pos_in_row: jax.Array,     # int32 [nsub] bit offset in [0, 1024)
-        bits_left: jax.Array,      # int32 [nsub]
-        lj_tile: jax.Array,        # int32 [T, L+1] left-justified lims
-        base_tile: jax.Array,      # int32 [T, L+1] (T = nsub/1024 tiles)
-        chunk_syms: int,
-        max_len: int,
-        row_words: int,
-        interpret: bool = False) -> jax.Array:
-    """Whole-batch buffered decode: every chunk of every block in one
-    pallas grid.  Rows are raw 1024-bit-aligned windows (see
-    `gather_rows`); `pos_in_row` gives each stream's bit offset inside
-    its row (the kernel normalizes in-register).  Canonical tables are
-    PER TILE (all 1024 chunks of a tile must share one table — the
-    caller pads ccap to a tile multiple).  Returns
-    int32[nsub, chunk_syms/4] PACKED canonical indices — byte b of
-    word q is the rank of symbol 4q+b (0 past each chunk's end)."""
-    nsub = rows_norm.shape[0]
-    L = max_len
-    rw = row_words
-    assert rows_norm.shape[1] == rw and rw % 8 == 0
-    TILE = _SL * NL
-    assert nsub % TILE == 0, "caller must pad chunks to tile multiple"
-    T = nsub // TILE
-    assert lj_tile.shape[0] == T and base_tile.shape[0] == T
+def walk_chunks(words: jax.Array, wbase: jax.Array, pos: jax.Array,
+                end: jax.Array, lut: jax.Array, lut_base: jax.Array,
+                chunk_syms: int, max_len: int, out_dtype=jnp.int32,
+                interpret: bool = False) -> jax.Array:
+    """Decode `nsub` aligned chunks of `chunk_syms` symbols each.
 
-    # chunk c = (i*_SL + s)*NL + lane; in-tile word plane row = w*8 + s
-    rows_t = jax.lax.bitcast_convert_type(
-        rows_norm, jnp.int32
-    ).reshape(T, _SL, NL, rw).transpose(0, 3, 1, 2).reshape(
-        T * rw * _SL, NL)
-    pos_t = pos_in_row.reshape(T * _SL, NL)
-    bl_t = bits_left.reshape(T * _SL, NL)
-    lj_p = jnp.broadcast_to(
-        lj_tile[:, :, None, None], (T, L + 1, _SL, NL)
-    ).reshape(T * (L + 1) * _SL, NL)
-    base_p = jnp.broadcast_to(
-        base_tile[:, :, None, None], (T, L + 1, _SL, NL)
-    ).reshape(T * (L + 1) * _SL, NL)
+    words     uint32[W]   stream words of every block, back to back
+    wbase     int32[nsub] word offset of each chunk's block in `words`
+    pos, end  int32[nsub] first bit and end bit of each chunk, relative
+                          to its block's first word
+    lut       int32[T * 2^max_len]  packed (sym << 4) | len tables
+    lut_base  int32[nsub] offset of each chunk's table in `lut`
 
-    Q = chunk_syms // 4
-    out = pl.pallas_call(
-        partial(_kernel_flat, max_len, chunk_syms, rw),
-        out_shape=jax.ShapeDtypeStruct((T * Q * _SL, NL), jnp.int32),
-        grid=(T,),
-        in_specs=[
-            pl.BlockSpec((rw * _SL, NL), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_SL, NL), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_SL, NL), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(((L + 1) * _SL, NL), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(((L + 1) * _SL, NL), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((Q * _SL, NL), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(rows_t, pos_t, bl_t, lj_p, base_p)
-    # in-tile out row = q*_SL + s  ->  [chunk, packed-word]
-    out = out.reshape(T, Q, _SL, NL).transpose(0, 2, 3, 1)
-    return out.reshape(nsub, Q)
-
-
-def gather_rows(words: jax.Array, offs: jax.Array, row_words: int):
-    """Gather each chunk's raw 256-bit-aligned stream window.
-
-    words: uint32 [B, w_pad]; offs: int32 [B, ccap] absolute bit
-    offsets.  Returns (rows uint32 [B*ccap, row_words],
-    pos_in_row int32 [B*ccap] in [0, 32*_PARA)).  ONE dim-0 gather of
-    a full row_words-wide row per chunk, from a 32-word-stride
-    overlapped layout — row width is the whole game on the v5e:
-    gathering rw/32 separate 128 B paragraph rows per chunk ran at
-    ~8.5 ns/row (20 ms/100 MB) while one 384 B row costs ~1.3 ns and
-    the 3x-overlap layout build ~1 ms/group.  Rotation/bit alignment
-    happens inside the kernel (`pos_in_row`).
+    Returns out_dtype[nsub, chunk_syms]; steps past a chunk's end bit
+    hold 0.  Reads may run up to two words past a chunk's last word;
+    they are clamped to `words`.
     """
-    B, w_pad = words.shape
-    ccap = offs.shape[1]
-    rw = row_words
-    P = _PARA
-    assert rw % P == 0
-    dup = rw // P
-    R = -(-w_pad // P)
-    wz = jnp.concatenate(
-        [words, jnp.zeros((B, R * P - w_pad + rw), jnp.uint32)], axis=1)
-    lay = jnp.concatenate(
-        [jax.lax.dynamic_slice_in_dim(wz, P * d, R * P, axis=1)
-            .reshape(B, R, P)
-         for d in range(dup)], axis=2).reshape(B * R, rw)
-    offs_f = offs.reshape(-1)
-    p0 = jnp.clip(offs_f >> 10, 0, R - 1)           # 1024-bit rows
-    bidx = (jnp.arange(B * ccap, dtype=jnp.int32) // ccap) * R
-    rows = lay[p0 + bidx]                           # [nsub, rw]
-    return rows, offs_f - (p0 << 10)
+    L = max_len
+    assert 2 * L <= 32 and chunk_syms % 2 == 0
+    nsub = pos.shape[0]
+    pad = -(-nsub // TILE) * TILE
+
+    def padc(x):
+        return jnp.pad(x.astype(jnp.int32), (0, pad - nsub))
+
+    tile = pl.BlockSpec((TILE,), lambda i: (i,))
+    out = pl.pallas_call(
+        partial(_walk_kernel, L, chunk_syms, words.shape[0]),
+        out_shape=jax.ShapeDtypeStruct((chunk_syms, pad), out_dtype),
+        grid=(pad // TILE,),
+        in_specs=[
+            pl.BlockSpec(words.shape, lambda i: (0,)),
+            tile, tile, tile, tile,
+            pl.BlockSpec(lut.shape, lambda i: (0,)),
+        ],
+        out_specs=pl.BlockSpec((chunk_syms, TILE), lambda i: (0, i)),
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
+        backend="triton",
+        interpret=interpret,
+        name="huffman_walk",
+    )(words.astype(_U32), padc(wbase), padc(pos), padc(end),
+      padc(lut_base), lut.astype(jnp.int32))
+    return out[:, :nsub].T

@@ -4,8 +4,8 @@ The reference builds tables on the CPU for CUHD
 (`encoder/src/llhuffman_encoder.cc:18-260`: package-merge lengths,
 canonical codes, flat LUT) and in a single-thread-block GPU kernel for
 cudpp (`compress_kernel.cuh:2200-2523`).  A 256-symbol table build is
-microseconds of scalar work — the TPU design keeps it on host, off the
-device critical path, and ships only the packed tables to the chip.
+microseconds of scalar work — this design keeps it on host, off the
+device critical path, and ships only the packed tables to the device.
 """
 
 from __future__ import annotations

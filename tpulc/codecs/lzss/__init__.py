@@ -8,7 +8,7 @@ Wire formats mirrored from the reference (SURVEY.md §2.1-2.2):
     it).
   - CULZSS flag-byte packet format (`cuda-lzss-cluster/gpu_compress.cu`).
 
-TPU design (vs the reference's per-thread serial loops):
+Design (vs the reference's per-thread serial loops):
   encode — exact 3-gram candidate discovery via one `lax.sort`,
     vectorized match extension, greedy parse as pointer-doubling
     reachability, token emission via prefix-sum bit packing.

@@ -9,7 +9,7 @@ Packets whose packed form reaches PCKTSIZE are stored raw (the
 reference's "compression took more" fallback, `gpu_compress.cu:496`,
 `culzss.c:176-183`).
 
-TPU design: every packet is a vmapped lane — encode runs the same
+Design: every packet is a vmapped lane — encode runs the same
 chain-search + pointer-doubling greedy parse as the Dipperstein codec
 (packet-local), plus an analytic same-byte run rule that recovers the
 long-match case (runs) without deep match extension.  Byte-exact layout

@@ -19,9 +19,8 @@ from tpulc.pipeline.registry import CODEC_LZSS
 from tpulc.primitives.checksum import adler32_np
 
 # 16 exact-3-gram chains + 8 7-gram chains: ratio 1.9102 vs 1.9162 at
-# k=32 on the bench corpus, at ~1.9x the encode speed (the candidate
-# match extension is gather-bound at ~120 M elem/s on the v5e; each
-# candidate costs 5 full-width gathers)
+# k=32 on the bench corpus, at half the candidates (each candidate
+# costs 5 full-width gathers)
 K_CANDIDATES = 16
 
 
@@ -78,7 +77,7 @@ def compress_raw(data: bytes | np.ndarray, k_cand: int = K_CANDIDATES,
     the reference brute-force encoder); the default uses hash chains
     (ratio 1.910 vs the reference's 1.925 on the bench corpus, at a
     small fraction of the cost — each candidate costs 5 full-width
-    gathers and gathers are the scarce TPU resource).
+    gathers).
     """
     arr = np.frombuffer(data, np.uint8) if isinstance(data, (bytes, bytearray)) \
         else np.asarray(data, np.uint8)

@@ -113,8 +113,8 @@ def _exact_best_match(padded: jax.Array, n_total: int, n: int):
                 (skey[1:] != skey[:-1]).astype(jnp.int32),
             ]
         )
-        # un-permute src and rank in ONE key-value sort (a scatter costs
-        # ~4x a sort on TPU; the old form paid two scatters per length)
+        # un-permute src and rank in ONE key-value sort (instead of two
+        # scatters per length)
         _, src_lin, rank = jax.lax.sort(
             (spos, src, jnp.cumsum(grp)), num_keys=1
         )

@@ -2,7 +2,7 @@
 
 The reference has no multi-GPU code (SURVEY.md §2.7); its block-level
 parallelism (OpenMP loops, pthread rings, atomic-counter schedulers) is
-replaced TPU-natively: a 1D `jax.sharding.Mesh` over the `'blocks'`
+replaced by JAX's own: a 1D `jax.sharding.Mesh` over the `'blocks'`
 axis, `shard_map`-ed per-block codecs, `psum` for shared-dictionary
 histograms, and `all_gather` of per-block compressed sizes to build the
 container offset table.

@@ -1,6 +1,6 @@
 """Multi-host block-parallel compression with host-0 container assembly.
 
-SURVEY.md §2.7's TPU-native communication backend, extended across
+SURVEY.md §2.7's JAX-native communication backend, extended across
 hosts: `jax.distributed.initialize` starts the runtime, each process
 compresses the block stripe it owns (blocks are embarrassingly
 parallel — the bzip2 all-core scheduler's `compress.c:876-1006` role),
@@ -28,7 +28,7 @@ def block_owner(block_idx: int, n_procs: int) -> int:
     Round-robin balances stripe sizes when the block count is not a
     multiple of the host count (the reference's atomic-counter work
     queue, `compress.c:914-919`, degenerates to this static schedule
-    because TPU hosts are homogeneous)."""
+    because the hosts are homogeneous)."""
     return block_idx % n_procs
 
 

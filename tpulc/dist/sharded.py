@@ -184,28 +184,31 @@ def sharded_bz_forward(mesh: Mesh, block_size: int):
     return jax.jit(step), make_args
 
 
-def sharded_bz_roundtrip(mesh: Mesh, block_size: int):
-    """Sharded forward AND inverse of the bz transform in one program.
-
-    Decode is the round-1 coverage gap (VERDICT missing #6): each
-    device inverts its own blocks (RLE2 -> MTF -> IBWT) after the
-    forward, and the program returns the reconstructed blocks so the
-    caller can assert sharded-decode == original bytes.  The collective
-    set matches the real pipeline: all_gather of per-block sizes.
-    """
-    from tpulc.codecs.bwt.driver import _cap_for, _forward
+def bz_roundtrip_one(block):
+    """bz transform of one padded block and its inverse:
+    (reconstructed block, RLE2 symbol count)."""
+    from tpulc.codecs.bwt.driver import _forward
     from tpulc.codecs.bwt.rle import rle2_decode
     from tpulc.codecs.bwt.rotsort import bwt_decode
     from tpulc.primitives.mtf import mtf_decode
 
-    cap = _cap_for(block_size)
+    syms, m, idx0, hist, anchors, ok = _forward(block)
+    ranks, _ = rle2_decode(syms, m)
+    last = mtf_decode(ranks)
+    return bwt_decode(last, idx0), m
 
-    def _one(block):
-        syms, m, idx0, hist, anchors, ok = _forward(block)
-        ranks, _ = rle2_decode(syms, m)
-        last = mtf_decode(ranks)
-        back = bwt_decode(last, idx0)
-        return back, m
+
+def sharded_bz_roundtrip(mesh: Mesh, block_size: int):
+    """Sharded forward AND inverse of the bz transform in one program.
+
+    Each device inverts its own blocks (RLE2 -> MTF -> IBWT) after the
+    forward, and the program returns the reconstructed blocks so the
+    caller can assert sharded-decode == original bytes.  The collective
+    set matches the real pipeline: all_gather of per-block sizes.
+    """
+    from tpulc.codecs.bwt.driver import _cap_for
+
+    cap = _cap_for(block_size)
 
     @partial(
         shard_map,
@@ -214,7 +217,7 @@ def sharded_bz_roundtrip(mesh: Mesh, block_size: int):
         out_specs=(P(BLOCKS_AXIS, None), P()),
     )
     def step(local_blocks):
-        back, m = jax.vmap(_one)(local_blocks)
+        back, m = jax.vmap(bz_roundtrip_one)(local_blocks)
         sizes = jax.lax.all_gather(m, BLOCKS_AXIS, tiled=True)
         return back, sizes
 

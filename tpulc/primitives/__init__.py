@@ -1,6 +1,6 @@
 """Data-parallel primitives shared by all codecs.
 
-TPU-native replacements for the reference's L1 layer (cub/moderngpu/
+JAX replacements for the reference's L1 layer (cub/moderngpu/
 thrust/b40c sort-scan-histogram machinery — SURVEY.md §1, §2.4): here
 they are `jax.lax` sorts and scans plus scatter/gather bit packing.
 """

@@ -2,15 +2,14 @@
 
 The reference packs variable-length codes with per-thread serial loops
 plus `atomicOr` into shared/global words (cudpp `huffman_kernel_en`,
-`compress_kernel.cuh:2525-2716`; Dipperstein `bitfile.c`).  On TPU there
-are no atomics in the XLA programming model and serial bit loops waste
-the VPU, so packing is reformulated as:
+`compress_kernel.cuh:2525-2716`; Dipperstein `bitfile.c`).  There are
+no atomics in the XLA programming model and serial bit loops waste the
+vector units, so packing is reformulated as:
 
     1. exclusive prefix-sum of the per-item bit lengths -> bit offsets,
     2. each item contributes to at most two 32-bit words (shift/mask),
     3. a segmented OR-scan over equal-word runs + one compaction sort
-       assembles the words (no scatters: on TPU a 1M-element scatter
-       costs ~2.5x a sort and ~4x an associative scan).
+       assembles the words (no scatters).
 
 The scatter-free assembly relies on two structural facts: bit offsets
 are monotone, so all codes starting in word w form a contiguous run;

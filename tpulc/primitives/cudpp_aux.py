@@ -5,7 +5,7 @@ reference library also ships `cudppRand` (MD5 counter-mode PRNG,
 `rand_app.cu` + `rand_kernel.cuh`), `cudppSparseMatrixVectorMultiply`
 (`spmvmult_app.cu`), `cudppTridiagonal` (CR-PCR solver,
 `tridiagonal_app.cu`) and the cuckoo hash tables (`src/cudpp_hash/`).
-These are their TPU-native equivalents (VERDICT r2 missing #6):
+These are their JAX equivalents:
 
 - `md5_rand`: counter-mode MD5, fully vectorized over blocks — one
   64-round unrolled pass on [n, 16]-word messages; bit-exact vs
@@ -163,7 +163,7 @@ class CuckooTable:
     `CUDPP_BASIC_HASH_TABLE` role — cudpp's tables are 4-way cuckoo
     with a stash, `src/cudpp_hash/hash_table.cu`).
 
-    TPU-native build: parallel EVICTION cuckoo livelocks under
+    Build: parallel EVICTION cuckoo livelocks under
     simultaneous scatters (measured: a fighting core of keys thrashes
     forever), so the build is 4-choice FIRST-WRITER-WINS insertion —
     placed keys are never disturbed, each round monotonically fills

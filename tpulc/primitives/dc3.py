@@ -8,7 +8,7 @@ This is the vectorized reference implementation (numpy): linear-time,
 recursion on the 2/3 sample, merge via a cross-class comparator.  It
 serves as (a) the DC3 algorithm capability itself and (b) an
 independent O(n) oracle for the device prefix-doubling
-`primitives.suffix.suffix_array`, which remains the TPU production
+`primitives.suffix.suffix_array`, which remains the device production
 path (single compiled program; DC3's data-dependent recursion depth
 would need ~log_{1.5}(n) separately compiled levels — SURVEY.md §7
 hard part 1).

@@ -2,8 +2,8 @@
 
 Replaces cudpp's shared-memory/atomic histogram kernel
 (`huffman_build_histogram_kernel`, `compress_kernel.cuh:2037-2128`) with
-a one-hot segment-sum, which XLA lowers to an efficient scatter-add on
-TPU (and can ride the MXU when batched as a one-hot matmul).
+a one-hot segment-sum, which XLA lowers to a scatter-add (or, batched,
+a one-hot reduction).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ def byte_histogram(data: jax.Array, num_bins: int = 256) -> jax.Array:
 def batched_byte_histogram(blocks: jax.Array, num_bins: int = 256) -> jax.Array:
     """Per-row histogram of uint8[B, N] -> int32[B, num_bins].
 
-    Uses a one-hot matmul so large batches run on the MXU.
+    Uses a one-hot reduction over the row.
     """
     onehot = jax.nn.one_hot(blocks.astype(jnp.int32), num_bins, dtype=jnp.float32)
     return jnp.sum(onehot, axis=1).astype(jnp.int32)

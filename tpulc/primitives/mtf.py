@@ -2,7 +2,7 @@
 
 cudpp parallelizes MTF with a 3-phase list-composition scan over
 64-byte substrings (`mtf_reduction_kernel` etc.,
-`compress_kernel.cuh:1340-1727`).  The TPU formulation is simpler and
+`compress_kernel.cuh:1340-1727`).  The formulation here is simpler and
 fully vectorized by exploiting two associative structures:
 
 Forward: the MTF table state before chunk c is fully determined by the
@@ -34,15 +34,6 @@ DEFAULT_CHUNK = 128  # 2x cudpp MTF_PER_THREAD (`cudpp_globals.h:54`): halves th
 # inverse permutation-composition scan volume (the decode hotspot)
 
 
-def _use_pallas() -> bool:
-    """Mosaic lockstep kernels run on real TPU backends only (the CPU
-    backend used by tests would interpret them far slower than XLA)."""
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except Exception:  # pragma: no cover - backend init failures
-        return False
-
-
 def _move_to_front(table: jax.Array, rank: jax.Array, value: jax.Array):
     """table [B,256]; move position `rank` (holding `value`) to front.
 
@@ -63,24 +54,15 @@ def mtf_encode(data: jax.Array, chunk: int = DEFAULT_CHUNK) -> jax.Array:
     assert n % chunk == 0, "pad input to a multiple of `chunk`"
     nchunks = n // chunk
     d = data.astype(jnp.uint8).reshape(nchunks, chunk)
-    use_pallas = _use_pallas()
 
-    # Per-chunk recency: position of last occurrence of each symbol.
-    if use_pallas:
-        from tpulc.primitives.mtf_pallas import mtf_recency_pallas
-
-        rec_rel = mtf_recency_pallas(d.astype(jnp.int32))
-        base = (jnp.arange(nchunks, dtype=jnp.int32) * chunk)[:, None]
-        recency = jnp.where(rec_rel >= 0, rec_rel + base, -1)
-    else:
-        gpos = (
-            jnp.arange(n, dtype=jnp.int32).reshape(nchunks, chunk)
-        )
-        recency = jnp.full((nchunks, 256), -1, jnp.int32)
-        recency = recency.at[
-            jnp.arange(nchunks, dtype=jnp.int32)[:, None],
-            d.astype(jnp.int32),
-        ].max(gpos)
+    # Per-chunk recency: position of last occurrence of each symbol
+    # (one scatter-max, an atomic max on the GPU).
+    gpos = jnp.arange(n, dtype=jnp.int32).reshape(nchunks, chunk)
+    recency = jnp.full((nchunks, 256), -1, jnp.int32)
+    recency = recency.at[
+        jnp.arange(nchunks, dtype=jnp.int32)[:, None],
+        d.astype(jnp.int32),
+    ].max(gpos)
 
     # Exclusive max-scan -> recency of each symbol before the chunk starts.
     incl = jax.lax.associative_scan(jnp.maximum, recency, axis=0)
@@ -94,14 +76,6 @@ def mtf_encode(data: jax.Array, chunk: int = DEFAULT_CHUNK) -> jax.Array:
     key = jnp.where(before >= 0, before, -2 - syms)
     order = jnp.argsort(-key, axis=1, stable=True).astype(jnp.uint8)
     table0 = order  # order holds symbol values (identity gathered)
-
-    if use_pallas:
-        from tpulc.primitives.mtf_pallas import mtf_encode_lockstep_pallas
-
-        ranks, _ = mtf_encode_lockstep_pallas(
-            table0.astype(jnp.int32), d.astype(jnp.int32)
-        )
-        return ranks.astype(jnp.uint8).reshape(n)
 
     # Lockstep serial encode inside chunks, vectorized across chunks.
     def step(table, col):
@@ -128,9 +102,8 @@ def mtf_decode(ranks: jax.Array, chunk: int = DEFAULT_CHUNK) -> jax.Array:
         jnp.arange(256, dtype=jnp.uint8)[None, :], (nchunks, 256)
     )
 
-    # Row-wise single-element gathers (take_along_axis on the lane
-    # axis) lower poorly on TPU (~150us/step); a masked lane-max
-    # reduction fetches perm[col] fully vectorized instead.
+    # perm[col] is fetched as a masked row-max reduction (vectorised
+    # across chunks) rather than a row-wise take_along_axis.
     pos = jnp.arange(256, dtype=jnp.uint8)[None, :]
 
     def build(perm, col):
@@ -139,17 +112,10 @@ def mtf_decode(ranks: jax.Array, chunk: int = DEFAULT_CHUNK) -> jax.Array:
 
     chunk_perm, _ = jax.lax.scan(build, ident, r.T)
 
-    # Exclusive composition scan: (a o b)[i] = a[b[i]].  The row-wise
-    # gather is two lane-wise 256-element sorts (invert b, then scatter
-    # a by the inverse) — ~20x faster than take_along_axis on TPU,
-    # where lane-dimension sorts are native and lane gathers are not.
+    # Exclusive composition scan: (a o b)[i] = a[b[i]], a row-wise
+    # gather.
     def compose(a, b):
-        iota = jnp.broadcast_to(
-            jnp.arange(256, dtype=jnp.uint8)[None], b.shape
-        )
-        _, inv_b = jax.lax.sort((b, iota), num_keys=1, dimension=1)
-        _, c = jax.lax.sort((inv_b, a), num_keys=1, dimension=1)
-        return c
+        return jnp.take_along_axis(a, b.astype(jnp.int32), axis=-1)
 
     incl = jax.lax.associative_scan(compose, chunk_perm, axis=0)
     table0 = jnp.concatenate([ident[:1], incl[:-1]], axis=0)

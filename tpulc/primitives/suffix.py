@@ -1,6 +1,6 @@
 """Suffix array construction on `lax.sort` (prefix doubling).
 
-The TPU equivalent of cudpp's `cudppSuffixArray` (recursive DC3 skew on
+The JAX equivalent of cudpp's `cudppSuffixArray` (recursive DC3 skew on
 cub radix sorts, `sa_app.cu:125-365`): SURVEY.md §7 sanctions either
 lax.sort-based DC3 or prefix-doubling; doubling is the better XLA fit —
 fixed-shape loop state, one stable two-key sort per round, early exit
